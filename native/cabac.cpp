@@ -12,7 +12,7 @@
 // (x264_tpu/entropy/cabac_tables.py, spec tables 9-44/9-45).
 //
 // The MB-layer syntax writer plays the role of the reference's
-// encoder/cabac.c:1088 x264_macroblock_write_cabac: the TPU design keeps
+// encoder/cabac.c:1088 x264_macroblock_write_cabac: this design keeps
 // analysis/transform/reconstruction on device and ships per-MB decision +
 // residual tensors to this serial writer (SURVEY §7.1: "C++ host code for
 // the serial entropy stage").

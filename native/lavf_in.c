@@ -1,7 +1,7 @@
 /* lavf input shim: libavformat demux + libavcodec decode + optional
  * swscale CSP conversion, exposed to Python over ctypes.
  *
- * TPU-native analogue of the reference's input/lavf.c (280 LoC): probe
+ * Native analogue of the reference's input/lavf.c (280 LoC): probe
  * any container/codec ffmpeg can read, decode to planar YUV, surface
  * stream metadata (dims, fps, SAR, bit depth, frame count) and per-frame
  * pts in stream timebase units for VFR handling (input/lavf.c converts

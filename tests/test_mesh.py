@@ -83,6 +83,25 @@ def test_make_mesh_shapes():
     assert mesh.axis_names == ("stream", "band")
 
 
+def test_make_mesh_never_switches_backend(monkeypatch):
+    """Too few default-backend devices is an error, even when another
+    backend (here the 8 virtual CPU devices) has enough."""
+    import jax
+
+    from x264_tpu.parallel import mesh as mesh_mod
+    real = jax.devices
+    cpus = real("cpu")
+    assert len(cpus) >= 4
+
+    def devices(backend=None):
+        return cpus if backend == "cpu" else cpus[:1]
+    monkeypatch.setattr(mesh_mod.jax, "devices", devices)
+    with pytest.raises(ValueError, match="need 4 devices, have 1"):
+        mesh_mod.make_mesh(4)
+    with pytest.raises(ValueError, match="need 4 devices, have 2"):
+        mesh_mod.make_mesh(4, devices=cpus[:2])
+
+
 def test_sharded_intra_multislice_conformance(tmp_path):
     """2 streams x 4 slice bands on 8 virtual devices; assembled multi-slice
     IDR stream decodes bit-exactly in libavcodec."""

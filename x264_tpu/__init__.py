@@ -1,8 +1,8 @@
-"""x264-tpu: a TPU-native H.264/AVC encoder framework.
+"""x264-tpu: an H.264/AVC encoder written in JAX.
 
 A from-scratch re-design of the capabilities of the reference x264 encoder
-for TPU hardware: batched/wavefront tensor pipelines under JAX/XLA/Pallas for
-the analysis+transform path, vectorized/native host code for the serial
+as batched/wavefront tensor pipelines under JAX/XLA for the
+analysis+transform path, vectorized/native host code for the serial
 entropy stage, and jax.sharding meshes in place of pthread parallelism.
 """
 

@@ -23,7 +23,7 @@ from .io.y4m import RawReader, Y4MReader, Y4MWriter, VideoInfo
 def build_argparser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(
         prog="x264-tpu", add_help=True,
-        description="TPU-native H.264 encoder (x264-compatible CLI)")
+        description="H.264 encoder in JAX (x264-compatible CLI)")
     ap.add_argument("input", help="input file (.y4m or raw .yuv)")
     ap.add_argument("-o", "--output", required=True, help="output .264")
     ap.add_argument("--preset", default="medium")
@@ -65,6 +65,8 @@ _NO_VALUE_PARAMS = {"no-cabac", "no-deblock", "no-scenecut", "cabac",
 
 
 def main(argv=None) -> int:
+    from .utils.jaxcache import enable_compile_cache
+    enable_compile_cache()
     argv = list(sys.argv[1:] if argv is None else argv)
     cli = {"preset": "medium", "tune": None, "profile": None, "frames": 0,
            "seek": 0, "input_res": None, "fps": None, "dump_yuv": None,

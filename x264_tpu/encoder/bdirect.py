@@ -1,7 +1,7 @@
 """B_Direct_16x16 / B_Skip: spatial direct motion derivation.
 
 Reference analogue: mb_predict_mv_direct16x16_spatial (mvpred.c:290) +
-the B_Skip/B_Direct decision in analyse.c:1844+. TPU re-expression: the
+the B_Skip/B_Direct decision in analyse.c:1844+. Batched form: the
 derivation reads only already-decided neighbor fields, so it runs as a
 batched shifted-neighbor pass; because a direct MB's own MV feeds later
 MBs' derivations, adoption runs as a bounded FIXED-POINT loop: derive ->
@@ -97,19 +97,17 @@ def derive_direct(use0, use1, mv0, mv1, col_inter, col_mv):
     return u0, u1, m0, m1
 
 
-def direct_pred_luma(hpel, dmv, mbh, mbw, me_range):
+def direct_pred_luma(hpel, dmv, mbh, mbw):
     """Luma MC at an arbitrary per-MB qpel MV via warp windows + one-hot
     phase selection (the per-MB-dynamic-phase form of refine_subpel's
     static candidate slices). Returns pred [n,16,16] int32."""
     from ..ops import mc
-    from ..ops.warp import mb_windows_auto
+    from ..ops.warp import mb_windows
     n = mbh * mbw
     M = 2
-    fp = (dmv >> 2).reshape(mbh, mbw, 2)          # floor full-pel part
-    win = mb_windows_auto(hpel, fp - M, bs=16,
-                          lo=-me_range - M, hi=me_range - M,
-                          win=16 + 2 * M + 1, pad=mc.PAD)
     WW = 16 + 2 * M + 1
+    fp = (dmv >> 2).reshape(mbh, mbw, 2)          # floor full-pel part
+    win = mb_windows(hpel, fp - M, bs=16, win=WW, pad=mc.PAD)
     win = win.reshape(n, 4, WW, WW).astype(jnp.int32)
     fx = (dmv[:, 0] & 3).astype(jnp.int32)
     fy = (dmv[:, 1] & 3).astype(jnp.int32)

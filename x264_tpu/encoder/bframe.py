@@ -3,7 +3,7 @@
 Reference analogues: mb_analyse_inter_b16x16 / b_direct handling
 (analyse.c:1844-2545), B MVP (common/mvpred.c:30 with per-list reference
 matching), spatial direct (mvpred.c:290), B entropy (cavlc.c:487 B
-branches). TPU re-expression: both reference directions run the same
+branches). Batched form: both reference directions run the same
 batched ESA + fused subpel pipeline as P frames; the per-MB mode
 (L0 / L1 / BI) is an argmin over three cost planes; B_Direct_16x16 is
 derived spatially from the decided fields and adopted through a bounded
@@ -175,8 +175,8 @@ def encode_bframe_device(y, u, v, r0_y, r0_hpel, r0_cuv, r1_y, r1_hpel,
             & (jnp.max(jnp.abs(dm1), axis=-1) <= bound)
         dm0f = dm0.reshape(n, 2)
         dm1f = dm1.reshape(n, 2)
-        pd0 = direct_pred_luma(r0_hpel, dm0f, mbh, mbw, me_range)
-        pd1 = direct_pred_luma(r1_hpel, dm1f, mbh, mbw, me_range)
+        pd0 = direct_pred_luma(r0_hpel, dm0f, mbh, mbw)
+        pd1 = direct_pred_luma(r1_hpel, dm1f, mbh, mbw)
         du0f = du0.reshape(n)
         du1f = du1.reshape(n)
         pred_dir = jnp.where((du0f & du1f)[:, None, None],
@@ -243,17 +243,15 @@ def encode_bframe_device(y, u, v, r0_y, r0_hpel, r0_cuv, r1_y, r1_hpel,
 
     # --- chroma: MC per list then combine by mode ---
     qpc = qpc_mb.reshape(-1)
-    pc0 = chroma_mc_warp(r0_cuv, mvs[0], mbh, mbw, me_range)
-    pc1 = chroma_mc_warp(r1_cuv, mvs[1], mbh, mbw, me_range)
+    pc0 = chroma_mc_warp(r0_cuv, mvs[0], mbh, mbw)
+    pc1 = chroma_mc_warp(r1_cuv, mvs[1], mbh, mbw)
     pcbi = bipred(pc0, pc1)
     pred_c_all = jnp.where((mode == MODE_L0)[:, None, None, None], pc0,
                            jnp.where((mode == MODE_L1)[:, None, None,
                                                        None], pc1, pcbi))
     if use_direct:
-        pcd0 = chroma_mc_warp(r0_cuv, mv0_f.reshape(n, 2), mbh, mbw,
-                              me_range)
-        pcd1 = chroma_mc_warp(r1_cuv, mv1_f.reshape(n, 2), mbh, mbw,
-                              me_range)
+        pcd0 = chroma_mc_warp(r0_cuv, mv0_f.reshape(n, 2), mbh, mbw)
+        pcd1 = chroma_mc_warp(r1_cuv, mv1_f.reshape(n, 2), mbh, mbw)
         du0f = use0_f.reshape(n)
         du1f = use1_f.reshape(n)
         pred_c_dir = jnp.where((du0f & du1f)[:, None, None, None],

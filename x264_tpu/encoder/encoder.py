@@ -1,6 +1,6 @@
 """Encoder core: lifecycle + per-frame orchestration.
 
-TPU-native re-design of reference encoder/encoder.c (4603 LoC). The reference
+Batched re-design of reference encoder/encoder.c (4603 LoC). The reference
 drives a per-MB serial hot loop (slice_write, encoder.c:2752); here each frame
 runs as batched device passes (analysis -> wavefront commit -> host entropy),
 per SURVEY.md §7.1.
@@ -162,19 +162,6 @@ class Encoder:
         self.sps = sets.sps_init(self.p, self.p.sps_id)
         self.pps = sets.pps_init(self.p, self.sps, self.p.sps_id)
         self.mb_w, self.mb_h = self.p.mb_width, self.p.mb_height
-        # commit backend (SURVEY §2.5: one Pallas backend + the pure-JAX
-        # reference): 'auto' = Pallas on a real accelerator, XLA scan on
-        # CPU (Mosaic kernels don't lower there)
-        if self.p.tpu_backend == "pallas":
-            self.use_pallas = True
-        elif self.p.tpu_backend == "auto":
-            import jax
-            try:
-                self.use_pallas = jax.default_backend() not in ("cpu",)
-            except Exception:
-                self.use_pallas = False
-        else:
-            self.use_pallas = False
         self.frame_num = 0          # frame_num syntax element
         self.idr_pic_id = 0
         self.frames_in = 0          # pictures accepted

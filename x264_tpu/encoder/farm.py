@@ -1,8 +1,8 @@
-"""Encode farm: S independent streams batched on one chip.
+"""Encode farm: S independent streams batched on one device.
 
 The reference scales throughput by running many encoder processes per
-machine (doc/threads.txt's frame-threads are its per-stream axis); on a
-TPU the same axis is a *batch dimension*: `jax.vmap` over the per-frame
+machine (doc/threads.txt's frame-threads are its per-stream axis); on
+the device the same axis is a *batch dimension*: `jax.vmap` over the per-frame
 device passes runs S streams' analysis/transform/entropy in lockstep,
 amortizing every dispatch, pipeline bubble and wavefront latency chain
 across the batch (BASELINE.md milestone config 5; SURVEY §2.9 mapping).

@@ -356,12 +356,12 @@ def _onehot_mode(preds, mode, n_modes):
     return jnp.sum(jnp.where(sel[:, :, None, None], preds, 0), axis=1)
 
 
-def _commit_scan(y, u, v, i16_mode, chroma_mode, qp_mb, qpc_mb,
-                 mbw, mbh, is_intra=None, inter_planes=None,
-                 i4_mask=None, i4_modes=None):
+def commit_scan(y, u, v, i16_mode, chroma_mode, qp_mb, qpc_mb,
+                mbw, mbh, is_intra=None, inter_planes=None,
+                i4_mask=None, i4_modes=None):
     """Wavefront commit in SKEWED layout (ops/skew.py): exact recon with
     true decoded neighbors, every diagonal step static-shaped dynamic-slice
-    work — no gathers or scatters (they cost ~10ns/element on TPU).
+    work over the mbh lanes of one anti-diagonal.
 
     Mixed-frame mode (is_intra + inter_planes given, the intra-in-P path,
     analyse.c:2939): non-intra MBs take their tiles from the precomputed
@@ -501,41 +501,19 @@ def _commit_scan(y, u, v, i16_mode, chroma_mode, qp_mb, qpc_mb,
     return coeffs, recon
 
 
-def commit_dispatch(y, u, v, i16_mode, chroma_mode, qp_mb, qpc_mb,
-                    mbw, mbh, is_intra=None, inter_planes=None,
-                    use_pallas=False, i4_mask=None, i4_modes=None):
-    """Backend switch for the wavefront commit: the XLA lax.scan twin or
-    the fused Pallas kernel (ops/pallas/commit.py, bit-exact, ~1.5x
-    faster on v5e). `use_pallas` is static (params.tpu_backend). The
-    kernel covers I16, mixed intra-in-P, and the I_4x4 z-scan path — so
-    it runs on every default (medium) encode (r4 verdict item 3)."""
-    if use_pallas:
-        from ..ops.pallas.commit import commit_i16_pallas
-        return commit_i16_pallas(y, u, v, i16_mode, chroma_mode, qp_mb,
-                                 qpc_mb, mbw=mbw, mbh=mbh,
-                                 is_intra=is_intra,
-                                 inter_planes=inter_planes,
-                                 i4_mask=i4_mask, i4_modes=i4_modes)
-    return _commit_scan(y, u, v, i16_mode, chroma_mode, qp_mb, qpc_mb,
-                        mbw, mbh, is_intra=is_intra,
-                        inter_planes=inter_planes,
-                        i4_mask=i4_mask, i4_modes=i4_modes)
-
-
-@partial(jax.jit, static_argnames=("mbw", "mbh", "use_pallas"))
+@partial(jax.jit, static_argnames=("mbw", "mbh"))
 def commit_i16x16(y, u, v, i16_mode, chroma_mode, qp_mb, qpc_mb,
-                  *, mbw, mbh, use_pallas=False):
-    """All-intra wavefront commit (I frames). See _commit_scan."""
-    return commit_dispatch(y, u, v, i16_mode, chroma_mode, qp_mb, qpc_mb,
-                           mbw, mbh, use_pallas=use_pallas)
+                  *, mbw, mbh):
+    """All-intra wavefront commit (I frames). See commit_scan."""
+    return commit_scan(y, u, v, i16_mode, chroma_mode, qp_mb, qpc_mb,
+                       mbw, mbh)
 
 
 @partial(jax.jit, static_argnames=("mbw", "mbh", "cap_words", "deblock",
-                                   "a_off", "b_off", "cqpo", "use_pallas",
-                                   "i4"))
+                                   "a_off", "b_off", "cqpo", "i4"))
 def encode_iframe_device(y, u, v, qp_mb, qpc_mb, slice_qp, *, mbw, mbh,
                          cap_words, deblock=False, a_off=0, b_off=0,
-                         cqpo=0, use_pallas=False, i4=False):
+                         cqpo=0, i4=False):
     """Fused device pass: mode decision + wavefront commit + CAVLC entropy +
     bit packing (+ in-loop deblock) — the whole frame in one dispatch. Only
     the packed slice payload (and recon, for the DPB) leaves the chip.
@@ -551,14 +529,13 @@ def encode_iframe_device(y, u, v, qp_mb, qpc_mb, slice_qp, *, mbw, mbh,
     if i4:
         i4_modes, i4_cost = decide_modes_i4(y, lam=lam_mb)
         i4_mask = i4_cost < i16_cost
-        coeffs, recon = commit_dispatch(
+        coeffs, recon = commit_scan(
             y, u, v, i16_mode, chroma_mode, qp_mb, qpc_mb, mbw, mbh,
-            use_pallas=use_pallas, i4_mask=i4_mask, i4_modes=i4_modes)
+            i4_mask=i4_mask, i4_modes=i4_modes)
     else:
         i4_mask = i4_modes = None
         coeffs, recon = commit_i16x16(y, u, v, i16_mode, chroma_mode,
-                                      qp_mb, qpc_mb, mbw=mbw, mbh=mbh,
-                                      use_pallas=use_pallas)
+                                      qp_mb, qpc_mb, mbw=mbw, mbh=mbh)
     dc_blk = coeffs["dc"]
     ac_blk = coeffs["ac"]
     cdc_blk = jnp.stack([coeffs["udc"], coeffs["vdc"]], axis=1)
@@ -583,10 +560,10 @@ def encode_iframe_device(y, u, v, qp_mb, qpc_mb, slice_qp, *, mbw, mbh,
 
 
 @partial(jax.jit, static_argnames=("mbw", "mbh", "deblock", "a_off",
-                                   "b_off", "cqpo", "use_pallas", "i4"))
+                                   "b_off", "cqpo", "i4"))
 def analyze_iframe_device(y, u, v, qp_mb, qpc_mb, slice_qp, *, mbw, mbh,
                           deblock=False, a_off=0, b_off=0, cqpo=0,
-                          use_pallas=False, i4=False):
+                          i4=False):
     """Device pass for the CABAC path: decide + commit + deblock, returning
     zigzagged levels for the host CABAC writer (native/cabac.cpp) instead
     of running the device CAVLC stage. With i4, the per-MB I_4x4 candidate
@@ -600,15 +577,14 @@ def analyze_iframe_device(y, u, v, qp_mb, qpc_mb, slice_qp, *, mbw, mbh,
     if i4:
         i4_modes, i4_cost = decide_modes_i4(y, lam=lam_mb)
         i4_mask = i4_cost < i16_cost
-        coeffs, recon = commit_dispatch(
+        coeffs, recon = commit_scan(
             y, u, v, i16_mode, chroma_mode, qp_mb, qpc_mb, mbw, mbh,
-            use_pallas=use_pallas, i4_mask=i4_mask, i4_modes=i4_modes)
+            i4_mask=i4_mask, i4_modes=i4_modes)
     else:
         i4_mask = jnp.zeros((mbh, mbw), bool)
         i4_modes = jnp.zeros((mbh, mbw, 16), jnp.int32)
         coeffs, recon = commit_i16x16(y, u, v, i16_mode, chroma_mode,
-                                      qp_mb, qpc_mb, mbw=mbw, mbh=mbh,
-                                      use_pallas=use_pallas)
+                                      qp_mb, qpc_mb, mbw=mbw, mbh=mbh)
     n = mbw * mbh
     # decoder-carried qp chain (mirrors entropy/cavlc_jax.py): dqp is
     # always signaled for I16 MBs, only with residual for I4 MBs
@@ -669,17 +645,16 @@ def i_stage_decide(y, u, v, qp_mb, *, i4):
     return i16_mode, chroma_mode, satd_cost, i4_mask, i4_modes
 
 
-@partial(jax.jit, static_argnames=("mbw", "mbh", "use_pallas", "with_i4"))
+@partial(jax.jit, static_argnames=("mbw", "mbh", "with_i4"))
 def i_stage_commit(y, u, v, i16_mode, chroma_mode, qp_mb, qpc_mb,
-                   i4_mask=None, i4_modes=None, *, mbw, mbh, use_pallas,
-                   with_i4):
+                   i4_mask=None, i4_modes=None, *, mbw, mbh, with_i4):
     """Stage: wavefront commit (exact recon + levels)."""
     if with_i4:
-        return commit_dispatch(y, u, v, i16_mode, chroma_mode, qp_mb,
-                               qpc_mb, mbw, mbh, use_pallas=use_pallas,
-                               i4_mask=i4_mask, i4_modes=i4_modes)
-    return commit_dispatch(y, u, v, i16_mode, chroma_mode, qp_mb,
-                           qpc_mb, mbw, mbh, use_pallas=use_pallas)
+        return commit_scan(y, u, v, i16_mode, chroma_mode, qp_mb,
+                           qpc_mb, mbw, mbh, i4_mask=i4_mask,
+                           i4_modes=i4_modes)
+    return commit_scan(y, u, v, i16_mode, chroma_mode, qp_mb, qpc_mb,
+                       mbw, mbh)
 
 
 @partial(jax.jit, static_argnames=("mbw", "mbh", "a_off", "b_off",
@@ -725,7 +700,7 @@ def i_stage_pack_cabac(coeffs, i4_mask, qp_mb, slice_qp, *, mbw, mbh):
 
 def encode_iframe_staged(y, u, v, qp_mb, qpc_mb, slice_qp, *, mbw, mbh,
                          cap_words, deblock=False, a_off=0, b_off=0,
-                         cqpo=0, use_pallas=False, i4=False):
+                         cqpo=0, i4=False):
     """Staged twin of encode_iframe_device (same outputs)."""
     from ..entropy.cavlc_jax import encode_i16x16_frame_dev
     from .stagewarm import stage as _st
@@ -734,7 +709,7 @@ def encode_iframe_staged(y, u, v, qp_mb, qpc_mb, slice_qp, *, mbw, mbh,
     coeffs, recon = _st(i_stage_commit)(
         y, u, v, i16_mode, chroma_mode, qp_mb, qpc_mb,
         i4_mask if i4 else None, i4_modes if i4 else None,
-        mbw=mbw, mbh=mbh, use_pallas=use_pallas, with_i4=i4)
+        mbw=mbw, mbh=mbh, with_i4=i4)
     dc_blk = coeffs["dc"]
     ac_blk = coeffs["ac"]
     cdc_blk = jnp.stack([coeffs["udc"], coeffs["vdc"]], axis=1)
@@ -756,7 +731,7 @@ def encode_iframe_staged(y, u, v, qp_mb, qpc_mb, slice_qp, *, mbw, mbh,
 
 def analyze_iframe_staged(y, u, v, qp_mb, qpc_mb, slice_qp, *, mbw, mbh,
                           deblock=False, a_off=0, b_off=0, cqpo=0,
-                          use_pallas=False, i4=False):
+                          i4=False):
     """Staged twin of analyze_iframe_device (same outputs)."""
     from .stagewarm import stage as _st
     i16_mode, chroma_mode, satd_cost, i4_mask, i4_modes = \
@@ -764,7 +739,7 @@ def analyze_iframe_staged(y, u, v, qp_mb, qpc_mb, slice_qp, *, mbw, mbh,
     coeffs, recon = _st(i_stage_commit)(
         y, u, v, i16_mode, chroma_mode, qp_mb, qpc_mb,
         i4_mask if i4 else None, i4_modes if i4 else None,
-        mbw=mbw, mbh=mbh, use_pallas=use_pallas, with_i4=i4)
+        mbw=mbw, mbh=mbh, with_i4=i4)
     n = mbw * mbh
     dc_z, ac_z, cdc, cac, eff_qp = _st(i_stage_pack_cabac)(
         coeffs, i4_mask, qp_mb, slice_qp, mbw=mbw, mbh=mbh)
@@ -846,7 +821,6 @@ def dispatch_iframe_cabac(enc, planes, ftype, qp, tree_off=None):
             a_off=enc.p.deblocking_filter_alphac0 * 2,
             b_off=enc.p.deblocking_filter_beta * 2,
             cqpo=enc.p.analyse.chroma_qp_offset,
-            use_pallas=enc.use_pallas,
             i4=bool(enc.p.analyse.intra & ANALYSE_I4x4))
         enc._pending_ref_fields = {
             "mvf": np.zeros((mbh, mbw, 2), np.int32),
@@ -949,7 +923,6 @@ def dispatch_iframe(enc, planes, ftype, qp, tree_off=None):
             a_off=enc.p.deblocking_filter_alphac0 * 2,
             b_off=enc.p.deblocking_filter_beta * 2,
             cqpo=enc.p.analyse.chroma_qp_offset,
-            use_pallas=enc.use_pallas,
             i4=bool(enc.p.analyse.intra & ANALYSE_I4x4))
         enc._pending_ref_fields = {
             "mvf": np.zeros((mbh, mbw, 2), np.int32),

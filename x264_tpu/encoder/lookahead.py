@@ -6,7 +6,7 @@ decision), encoder/slicetype.c:514 (lowres MB costs), slicetype.c:836
 B placement over path costs), slicetype.c:1384-1468 (scene-cut with
 flash detection), slicetype.c:1473 (the analyse driver).
 
-TPU re-expression: the lowres pyramid is one fused downsample; each
+Batched form: the lowres pyramid is one fused downsample; each
 (p0,p1,b) frame cost is a single batched device pass over all lowres
 8x8 blocks (dense shifted-plane search — the ESA form — instead of the
 reference's per-MB HEX loop), memoized host-side exactly like the

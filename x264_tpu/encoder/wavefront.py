@@ -2,7 +2,7 @@
 
 The reference encodes MBs serially in raster order (slice_write,
 encoder.c:2752) because intra prediction/MV prediction depend on the left /
-top / top-left neighbors. On TPU we batch all MBs of an anti-diagonal
+top / top-left neighbors. Here we batch all MBs of an anti-diagonal
 (d = mbx + mby): every dependency of diagonal d lives on d-1 / d-2, so a
 lax.scan over diagonals with a vmapped step gives min(mb_w, mb_h)-way
 parallelism with exact (conformant) reconstruction. (SURVEY.md §2.9.4/§5.7.)

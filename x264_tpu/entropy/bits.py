@@ -7,7 +7,7 @@ Two implementations of the reference `bs_t` bit writer
   where throughput doesn't matter.
 * `pack_codes` — vectorized packer: given parallel numpy arrays of
   (code, length) syntax elements in stream order, concatenates them into a
-  byte buffer in O(total_bits) numpy work. This is how the TPU build writes
+  byte buffer in O(total_bits) numpy work. This is how this encoder writes
   MB-layer CAVLC: the device produces per-block syntax elements as tensors,
   the host packs them without a per-element Python loop.
 

@@ -1,4 +1,4 @@
-"""Device-side CAVLC: code generation AND bit packing on the TPU.
+"""Device-side CAVLC: code generation AND bit packing on the device.
 
 The reference writes CAVLC serially through a host bit engine
 (encoder/cavlc.c + bs_t). Here the entire MB-layer entropy stage is device
@@ -26,11 +26,9 @@ BLOCK_SLOTS = 36
 
 
 def lut(table, idx):
-    """Small-table lookup as a dense one-hot sum.
-
-    TPU gathers cost ~10ns/element; for tables up to a few hundred entries a
-    dense compare+select+sum over the table axis is ~10-50x faster. table is
-    a numpy array (any rank, indexed flat); idx is a flat index array."""
+    """Small-table lookup as a dense one-hot sum (compare+select+sum over
+    the table axis instead of a gather). table is a numpy array (any rank,
+    indexed flat); idx is a flat index array."""
     t = np.asarray(table).reshape(-1)
     tj = jnp.asarray(t)
     ar = jnp.arange(t.shape[0], dtype=jnp.int32)
@@ -62,7 +60,7 @@ def _reverse_nonzeros_dev(coeffs):
 
     Rank-based compaction (no sort): a nonzero at position i lands at
     reversed index r = #nonzeros at positions > i; gathered by a one-hot
-    contraction over the (tiny) L axis — far cheaper on TPU than argsort."""
+    contraction over the (tiny) L axis instead of an argsort."""
     B, L = coeffs.shape
     nz = coeffs != 0
     nzi = nz.astype(jnp.int32)
@@ -213,8 +211,8 @@ def pack_mb_stream(codes, lens, mb_cap_words: int, cap_words: int,
     words. codes/lens are [M, S]: M groups (MBs), S slots each, stream order
     = row-major.
 
-    TPU-native two-phase design (scatters/gathers are ~10ns/elem on TPU, so
-    both a flat 7.7M-element scatter and a gather-based tree are slow):
+    Two-phase design (avoids both a flat 7.7M-element scatter and a
+    gather-based tree):
       A. slots -> per-MB buffers [M, mb_cap_words+1] by dense one-hot word
          placement, reduced over slots in static chunks (pure VPU math,
          fusion-friendly, no gather/scatter).

@@ -1,6 +1,6 @@
 """lavf input demuxer: any container/codec ffmpeg can read.
 
-TPU-native analogue of the reference's input/lavf.c (280 LoC): a thin
+Analogue of the reference's input/lavf.c (280 LoC): a thin
 ctypes bridge to native/lavf_in.c (libavformat demux + libavcodec decode
 + swscale CSP normalization). Non-YUV sources are converted to yuv420p,
 matching the reference CLI's auto-inserted CSP filter (x264.c:1305).

@@ -1,6 +1,6 @@
 """In-loop deblocking filter (spec 8.7; reference common/deblock.c).
 
-TPU design: boundary strengths for the whole frame are computed in one
+Design: boundary strengths for the whole frame are computed in one
 batched pass (reference deblock_strength_c, deblock.c:277); the filter
 itself is a wavefront scan over MBs (the spec's raster V-then-H order has a
 left/top dependency exactly like intra prediction), with each diagonal's
@@ -52,8 +52,7 @@ def filter_lines_luma(p, q, bs, alpha, beta, tc0):
     p, q: [..., 4] samples (p[...,0]=p3..p[...,3]=p0; q[...,0]=q0..q3).
     bs, alpha, beta, tc0: broadcastable per-line ints.
     Returns filtered (p, q)."""
-    # int32 throughout: XLA:TPU miscompiles negative int16 >> in fusions
-    # (see ops/mc.py hpel_planes note)
+    # int32 throughout (exact on every backend)
     p = p.astype(jnp.int32)
     q = q.astype(jnp.int32)
     p3, p2, p1, p0 = p[..., 0], p[..., 1], p[..., 2], p[..., 3]
@@ -239,8 +238,8 @@ def compute_strengths_b(nnz4, use0_mb, use1_mb, mv0_mb, mv1_mb,
 
 
 def _lut(table, idx):
-    """Small-table lookup as dense one-hot sum (TPU gathers are ~10ns/elem;
-    a 52-entry compare+select+sum is far cheaper — same idiom as
+    """Small-table lookup as a dense one-hot sum (a 52-entry
+    compare+select+sum instead of a gather — same idiom as
     entropy/cavlc_jax.lut)."""
     t = np.asarray(table).reshape(-1)
     tj = jnp.asarray(t)

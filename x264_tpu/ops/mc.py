@@ -5,7 +5,7 @@ Reference op table: common/mc.h:267-345 (x264_mc_functions_t); C impls
 common/mc.c. Spec math: H.264 8.4.2.2 (6-tap (1,-5,20,20,-5,1) halves,
 rounded-average quarters; chroma 1/8-pel bilinear).
 
-TPU design: the reference frame is border-extended once (PAD px) and its 3
+Design: the reference frame is border-extended once (PAD px) and its 3
 half-pel planes are produced in one fused pass per frame; any block at any
 quarter-pel MV is then a batched gather (+ one average), so motion search
 candidates across all MBs evaluate as single tensor ops.
@@ -20,7 +20,7 @@ import jax.numpy as jnp
 import numpy as np
 
 PAD = 32          # border extension (reference frame.c:59 padded strides)
-CPAD = 32         # chroma border (sized for the warp kernel's row bands)
+CPAD = 32         # chroma border (covers the chroma MC warp windows)
 
 # qpel index (my&3)*4 + (mx&3) -> source hpel planes (0=full,1=H,2=V,3=C)
 HPEL_REF0 = np.array([0, 1, 1, 1, 0, 1, 1, 1, 2, 3, 3, 3, 0, 1, 1, 1])
@@ -34,7 +34,7 @@ def pad_plane(plane, pad: int = PAD):
 
 def _tap6_rows(a, dtype=None):
     """(1,-5,20,20,-5,1) along axis 0; output rows = rows - 5. Row slices
-    only (no transposes — TPU-cheap)."""
+    only (no transposes)."""
     n = a.shape[0] - 5
     sl = [a[i:n + i] for i in range(6)]
     if dtype is not None:
@@ -73,9 +73,7 @@ def hpel_planes(padded):
     # horizontal 6-tap at every x (replicated edges)
     fx = _edge_pad(f, 1, 2, 3)
     b1 = _tap6_cols(fx, jnp.int16)            # [H, W] unrounded
-    # NOTE: the rounding shift must be int32 — XLA:TPU miscompiles the
-    # int16 arithmetic >> inside this fusion (negative taps come back as
-    # logical shifts), verified empirically; int32 is exact.
+    # the rounding shift runs in int32 (exact on every backend)
     hplane = jnp.clip((b1.astype(jnp.int32) + 16) >> 5, 0, 255)
     fy = _edge_pad(f, 0, 2, 3)
     h1 = _tap6_rows(fy, jnp.int16)

@@ -1,7 +1,7 @@
 """Pixel comparison metrics: SAD / SSD / SATD / SA8D / variance / SSIM.
 
 Reference op table: common/pixel.h:78-144 (x264_pixel_function_t).
-All ops batched over leading dims; blocks are [..., h, w]. On TPU the
+All ops batched over leading dims; blocks are [..., h, w]. The
 multi-candidate versions (sad_x4 etc.) are just larger batches.
 """
 

@@ -1,7 +1,7 @@
 """Intra prediction: all H.264 modes, batched.
 
 Reference op table: common/predict.h:30-110; C impls common/predict.c.
-TPU design: a block's prediction is a pure function of its (substituted)
+Design: a block's prediction is a pure function of its (substituted)
 edge pixels, so every mode for every block in a wavefront batch is computed
 as gathers over precomputed filtered edge arrays:
 

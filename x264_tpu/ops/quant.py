@@ -7,7 +7,7 @@ quantizer (encoder freedom).
 
 All ops are batched over leading dims and accept `qp` as a scalar or an array
 broadcastable against the batch (per-MB adaptive QP). int32 throughout —
-safe for 8-bit depth (TPU JAX has no x64).
+safe for 8-bit depth (JAX runs without x64 by default).
 """
 
 from __future__ import annotations

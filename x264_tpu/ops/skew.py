@@ -4,14 +4,13 @@ The per-MB raster dependencies (left / top / top-left — reference
 slice_write order, encoder.c:2752) make the MB wavefront the minimal
 sequential structure for exact intra reconstruction and in-loop deblocking
 (SURVEY.md §2.9.4). A naive scan gathers each diagonal's MBs with computed
-indices — and TPU gathers/scatters cost ~10ns/element, hundreds of ms per
-1080p frame.
+indices.
 
 This module removes every gather: planes are stored SKEWED so that
 wavefront diagonal d is a contiguous vertical strip. MB(x, y) of an s-px
 plane lives at rows [y*s, y*s+s), cols [(x + y + pad_strips)*s, ...+s).
 Each scan step is then a static-shaped jax.lax.dynamic_slice /
-dynamic_update_slice (measured ~100x faster than the gather/scatter form).
+dynamic_update_slice.
 
 Neighbor algebra in skewed space (d = x + y):
   left  MB (x-1, y):   strip d-1, same lane y

@@ -2,7 +2,7 @@
 
 Reference: encoder/rdo.c:642 quant_trellis_cabac. The reference runs an
 8-node Viterbi per 4x4 block, sequentially per block inside the MB
-encode. The TPU re-expression runs the SAME dynamic program as one
+encode. The batched form runs the SAME dynamic program as one
 `lax.scan` of 16 steps (reverse zigzag order) over ALL blocks of a frame
 at once: each step relaxes the 8 node-contexts x 2 candidate levels
 (q-1, q) with vectorized per-lane costs. This is the most

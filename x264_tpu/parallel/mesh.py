@@ -1,4 +1,4 @@
-"""Multi-chip sharding: the TPU-native re-expression of the reference's
+"""Multi-device sharding: the mesh re-expression of the reference's
 thread parallelism (SURVEY.md §2.9, doc/threads.txt).
 
 Mapping:
@@ -31,19 +31,17 @@ from ..encoder.intra import encode_iframe_device
 def make_mesh(n_devices: int, devices=None) -> Mesh:
     """2D (stream, band) mesh; factorizes n into the two axes.
 
-    If the default backend has fewer than n devices (the usual case on the
-    single-chip dev box), fall back to the virtual CPU devices provisioned
-    by --xla_force_host_platform_device_count (see __graft_entry__)."""
+    `devices` defaults to the default backend's devices. Too few devices
+    is an error: a mesh never moves to another backend on its own. A CPU
+    dry run passes jax.devices("cpu") explicitly (virtual devices come
+    from --xla_force_host_platform_device_count)."""
     if devices is None:
         devices = jax.devices()
-        if len(devices) < n_devices:
-            devices = jax.devices("cpu")
-        if len(devices) < n_devices:
-            raise ValueError(
-                f"need {n_devices} devices, have {len(devices)}; set "
-                "XLA_FLAGS=--xla_force_host_platform_device_count before "
-                "importing jax")
-        devices = devices[:n_devices]
+    if len(devices) < n_devices:
+        raise ValueError(
+            f"need {n_devices} devices, have {len(devices)} "
+            f"({devices[0].platform if devices else 'none'})")
+    devices = devices[:n_devices]
     band = 1
     for cand in (4, 2):
         if n_devices % cand == 0 and n_devices > cand:
@@ -225,8 +223,8 @@ def sharded_pframe_encode(mesh: Mesh, planes_batch, refs_batch, qp: int = 26,
     # per-band padded reference windows (band rows +- PAD, full width +
     # PAD). All prep runs in NUMPY on the host: nothing here may touch the
     # default jax backend — the only device placement is the explicit
-    # device_put to the mesh sharding below, so the whole call is hermetic
-    # to whatever the default (e.g. TPU) backend's health is.
+    # device_put to the mesh sharding below, so the whole call stays on
+    # the mesh's devices whatever the default backend is.
     PAD = mc_ops.PAD
     CPAD = mc_ops.CPAD
     ry_l, rhp_l, rcuv_l = [], [], []

@@ -1,6 +1,6 @@
 """Encoder parameter system: defaults, presets, tunes, profiles, string parser.
 
-TPU-native re-design of the reference x264 configuration surface
+JAX re-design of the reference x264 configuration surface
 (reference: x264.h:312-622 `x264_param_t`; common/base.c:344 defaults;
 base.c:489-609 presets; base.c:611-706 tunes; base.c:749 profiles;
 base.c:886 `x264_param_parse`).
@@ -195,7 +195,7 @@ class Zone:
 @dataclass
 class Params:
     """Top-level encoder parameters (reference x264_param_t, x264.h:312-622)."""
-    # Threads / determinism (on TPU these select batching strategies)
+    # Threads / determinism
     threads: int = 0                 # 0 = auto
     lookahead_threads: int = 0
     sliced_threads: bool = False     # band-parallel single-frame mode
@@ -274,8 +274,8 @@ class Params:
     mastering_display: str = ""      # "G(x,y)B(x,y)R(x,y)WP(x,y)L(max,min)"
     content_light_level: str = ""    # "maxcll,maxfall"
     stitchable: bool = False
-    opencl: bool = False             # reference GPU-lookahead toggle; TPU build
-                                     # runs lookahead on-device always
+    opencl: bool = False             # reference GPU-lookahead toggle; this
+                                     # build runs lookahead on-device always
     dump_yuv: str = ""
     full_recon: bool = False
     # per-NAL callback for low-latency streaming (reference x264.h:584:
@@ -287,9 +287,7 @@ class Params:
     log_level: int = LOG_INFO
     psz_clbin_file: str = ""
 
-    # TPU-specific extensions (no reference equivalent)
-    tpu_backend: str = "auto"        # 'auto' | 'xla' | 'pallas' | 'numpy'
-    tpu_batch_frames: int = 1        # frames analysed per device dispatch
+    # extensions (no reference equivalent)
     force_pcm: bool = False          # debug: emit I_PCM macroblocks only
 
     # ---- derived helpers -------------------------------------------------
@@ -901,10 +899,5 @@ def param_parse(p: Params, name: str, value: Optional[str] = None) -> None:
         p.bitdepth = i()
     elif name == "input-csp":
         p.csp = _parse_enum(value, CSP_NAMES)
-    # TPU-specific
-    elif name == "tpu-backend":
-        p.tpu_backend = value
-    elif name == "tpu-batch-frames":
-        p.tpu_batch_frames = i()
     else:
         raise ParamError(f"unknown parameter '{name}'")
